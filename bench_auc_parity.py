@@ -6,7 +6,7 @@ with a planted CTR signal (no real dataset ships in this zero-egress image;
 data/criteo.py:write_synthetic_criteo_signal generates realistic-scale
 Criteo-format TSV), over >= 3 seeds, and reports train-stream AUC plus
 held-out AUC for each. Parity = dynamic within the static baseline's
-run-to-run spread. Results are recorded in BASELINE.md.
+run-to-run spread. Results go to PERF.md.
 
 Env knobs: MEEPO_PARITY_LINES (default 400K train + 64K eval),
 MEEPO_PARITY_SEEDS (default 3), MEEPO_PARITY_BATCH (default 2048).
@@ -23,6 +23,9 @@ def log(*a):
 
 
 def main():
+    from meepoembedding_tpu.device import bench_device
+
+    bench_device()
     import numpy as np
 
     from meepoembedding_tpu.baseline import StaticEmbeddingTrainer

@@ -1,6 +1,6 @@
 """Micro-bench dedup variants on the chip (r4 perf work).
 
-Current unique_pairs (r3): sort#1 (5 operands, 2 keys) + MXU prefix sum +
+Current unique_pairs (r3): sort#1 (5 operands, 2 keys) + matmul prefix sum +
 sort#2 (inverse) + sort#3 (compaction).  Candidates:
   A. 3-operand sort#1: carry only (bh, bl, iota); reconstruct ids by XOR
      (the key transform is bijective, EMPTY maps to the unsigned max).
@@ -134,9 +134,12 @@ def unique_C(hi, lo, size):
 
 
 def main():
+    from meepoembedding_tpu.device import bench_device
+
+    bench_device()
     hi_np, lo_np = make_stream()
     hi, lo = jnp.asarray(hi_np), jnp.asarray(lo_np)
-    print(f"device: {jax.devices()[0].device_kind}, n={N}, ucap={UCAP}")
+    print(f"n={N}, ucap={UCAP}")
 
     cur = jax.jit(lambda h, l: dedup.unique_pairs(h, l, UCAP))
     fA = jax.jit(lambda h, l: unique_A(h, l, UCAP))

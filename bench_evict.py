@@ -21,6 +21,9 @@ def log(*a):
 
 
 def main():
+    from meepoembedding_tpu.device import bench_device
+
+    bench_device()
     import jax
     import jax.numpy as jnp
 
@@ -43,7 +46,7 @@ def main():
         max_probe_rounds=2,
     )
     spec = TableSpec.from_config(cfg, num_shards=1)
-    log(f"device={jax.devices()[0].device_kind} cap={cap} dim={dim} {dtype}")
+    log(f"cap={cap} dim={dim} {dtype}")
 
     shard = jax.jit(lambda: alloc_shard(spec))()
     jax.block_until_ready(shard.values)
@@ -67,8 +70,8 @@ def main():
         hi, lo = hashing.split_ids(ids)
         shard = prefill_step(shard, jnp.asarray(hi), jnp.asarray(lo), jnp.int32(1))
         if (i // pb) % 4 == 3:
-            float(shard.counters[0])
-    float(shard.counters[0])
+            jax.block_until_ready(shard.counters)
+    jax.block_until_ready(shard.counters)
     log(f"prefill {n_live} rows in {time.perf_counter()-t0:.1f}s")
 
     evict = jax.jit(xla_ops.evict_pass, static_argnums=(0,), donate_argnums=(1,))

@@ -27,6 +27,9 @@ def log(*a):
 
 
 def main():
+    from meepoembedding_tpu.device import bench_device
+
+    bench_device()
     import numpy as np
 
     from meepoembedding_tpu.config import (

@@ -25,6 +25,9 @@ def log(*a):
 
 
 def main():
+    from meepoembedding_tpu.device import bench_device
+
+    bench_device()
     items = int(os.environ.get("MEEPO_RET_ITEMS", 1 << 20))
     dim = int(os.environ.get("MEEPO_RET_DIM", 64))
     batch = int(os.environ.get("MEEPO_RET_BATCH", 256))

@@ -2,11 +2,8 @@
 examples/s at 2+ hosts).
 
 Weak scaling: fixed PER-DEVICE batch; efficiency(N) =
-examples_per_sec(N) / (N * examples_per_sec(1)). Runs on whatever devices
-are visible — the real measurement needs a multi-chip TPU slice (ICI); on a
-CPU host-device mesh the numbers validate the HARNESS, not TPU scaling
-(one host core timeshares all virtual devices, so CPU efficiency is ~1/N
-by construction).
+examples_per_sec(N) / (N * examples_per_sec(1)). Runs over the visible
+GPUs (four local cards for N up to 4).
 
 Env: MEEPO_SCALE_DEVICES (mesh sizes, default "1,2,4,8" clipped to
 available), MEEPO_SCALE_BATCH (per-device, default 1024),
@@ -24,6 +21,9 @@ def log(*a):
 
 
 def main():
+    from meepoembedding_tpu.device import bench_device
+
+    bench_device()
     import jax
     import numpy as np
 

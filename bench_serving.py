@@ -23,6 +23,9 @@ def log(*a):
 
 
 def main():
+    from meepoembedding_tpu.device import bench_device
+
+    bench_device()
     rows = int(os.environ.get("MEEPO_SRV_ROWS", 1 << 20))
     batch = int(os.environ.get("MEEPO_SRV_BATCH", 512))
     steps = int(os.environ.get("MEEPO_SRV_STEPS", 50))

@@ -4,7 +4,7 @@ Trains the DLRM-small dynamic-table trainer on the parity stream (same
 Criteo-format planted-signal TSV as bench_auc_parity), checkpoints it, then
 scores the held-out slice through ScoringService twice — f32 table vs
 `quantize="int8"` — and reports both AUCs. Done-gate: |delta| < 1e-3 or an
-explanation in BASELINE.md.
+explanation in PERF.md.
 
 Env: MEEPO_PARITY_LINES (400K), MEEPO_PARITY_BATCH (2048), MEEPO_SRV_SEED (0).
 """
@@ -20,6 +20,9 @@ def log(*a):
 
 
 def main():
+    from meepoembedding_tpu.device import bench_device
+
+    bench_device()
     import numpy as np
 
     from meepoembedding_tpu.config import (

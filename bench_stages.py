@@ -30,6 +30,9 @@ def timeit(name, fn, *args, steps=10):
 
 
 def main():
+    from meepoembedding_tpu.device import bench_device
+
+    bench_device()
     import jax
     import jax.numpy as jnp
 
@@ -46,7 +49,7 @@ def main():
         optimizer=OptimizerConfig(kind="rowwise_adagrad", learning_rate=0.05),
     )
     spec = TableSpec.from_config(cfg)
-    log(f"device={jax.devices()[0].device_kind} cap={cap} batch={batch} dim={dim}")
+    log(f"cap={cap} batch={batch} dim={dim}")
 
     shard = jax.jit(lambda: alloc_shard(spec))()
     n_live = int(cap * 0.8)
@@ -114,7 +117,7 @@ def main():
     timeit("  row_apply_delta (values)", rad, shard, slot, gu)
 
     # raw combine cost: exact byte-plane vs plain float cumsum
-    from meepoembedding_tpu.table.pallas_ops import combine_rows_by_vrow
+    from meepoembedding_tpu.ops.dedup import combine_rows_by_vrow
     from meepoembedding_tpu.ops.dedup import sorted_run_sums
 
     vrow = jnp.clip(slot, 0) // spec.pack

@@ -1,5 +1,5 @@
 // Native Criteo TSV batch parser (SURVEY.md C17 — the reference class feeds
-// its tables from C++ data loaders; this is the TPU build's native input
+// its tables from C++ data loaders; this is this build's native input
 // path). Bit-compatible with the Python parser in
 // meepoembedding_tpu/data/criteo.py:
 //   - label  = strtod(field) (empty -> 0), cast to f32

@@ -1,7 +1,7 @@
 // Host-DRAM KV tier (SURVEY.md C6, L1): the spill backend behind the
 // HBM-resident table. The reference class ships a native CPU hash-table
 // backend (README.md:2 "Supports GPU, CPU"; .gitignore:14-17 shared-library
-// artifacts); this is its TPU-framework equivalent: an open-addressing
+// artifacts); this is this framework's equivalent: an open-addressing
 // int64 -> float32-row store exposed through a C ABI for ctypes (no pybind11
 // in the toolchain). All batch entry points drop the GIL by construction
 // (ctypes releases it around foreign calls) and shard large batches across a

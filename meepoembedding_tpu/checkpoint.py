@@ -1,8 +1,8 @@
 """Elastic sharded checkpoints (SURVEY.md C19, §3.5; BASELINE config 5).
 
 The reference class checkpoints its native KV tables by streaming (key, value,
-optimizer-slot) tuples per shard (README.md:2 "distributed ... systems"); the
-TPU build streams each shard's LIVE rows to one `.npz` of flat arrays plus a
+optimizer-slot) tuples per shard (README.md:2 "distributed ... systems"); this
+build streams each shard's LIVE rows to one `.npz` of flat arrays plus a
 JSON manifest, then restores by REHASHING every key to its new owner — so a
 checkpoint written with N shards loads onto M devices (elastic reshard).
 
@@ -71,14 +71,14 @@ def _live_slot_index(spec: TableSpec, shard: TableShard, n_live: int):
 def _fetch_chunk(spec: TableSpec, shard: TableShard, idx_all, e_pad: int,
                  o: int, n: int, chunk: int) -> dict:
     """Device->host fetch of live rows [o, o+n) in RAW dtypes: a bf16 table's
-    values cross the (slow) device link as 2-byte rows, not widened f32 —
-    half the checkpoint bytes for the dominant payload (VERDICT r2 #7).
+    values cross the device link as 2-byte rows, not widened f32 — half the
+    checkpoint bytes for the dominant payload.
 
     The device-side gather is bounded to MEEPO_FETCH_SUB_ROWS (2^19) rows
     per dispatch regardless of the part-file chunk size: gather_values
     widens its [n, 128] window gather to f32, so a 2^22-row part would
-    stage ~2 GB of temporaries per op — more than the HBM headroom a
-    >90%-full 2^27 table leaves (measured OOM on the v5e at config 5)."""
+    stage ~2 GB of temporaries per op next to a nearly full table (the
+    bound is re-sized when the checkpoint cell exists, ROADMAP A10)."""
     sub = int(os.environ.get("MEEPO_FETCH_SUB_ROWS", 1 << 19))
     if n > sub:
         parts = [

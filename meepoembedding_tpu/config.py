@@ -9,7 +9,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-LANES = 128  # TPU vector lane width; one hash bucket == one lane row.
+LANES = 128  # bucket width in slots; one hash bucket == one 128-lane row.
 
 
 def _pow2(x: int) -> bool:
@@ -68,9 +68,8 @@ class PolicyConfig:
     max_evict_per_pass: int = 1 << 14
     cms_width: int = 1 << 15
     # Buckets scanned per evict pass (rotating window; None = whole table).
-    # At 2^27 capacity the full-plane candidate scan measured ~1.2 s on a
-    # v5e; a 2^13-bucket window visits the whole table every nb/K ticks at
-    # ~K/nb of that cost. Trainers rotate the cursor automatically.
+    # A 2^13-bucket window visits the whole table every nb/K ticks at ~K/nb
+    # of a full scan's cost. Trainers rotate the cursor automatically.
     evict_scan_buckets: Optional[int] = None
 
     def __post_init__(self):
@@ -193,13 +192,13 @@ class RunConfig:
     # exchange is drop-free in steady state without lossless S-times buffers.
     a2a_factor: float = 1.25
     # Ragged ID/row/grad exchange (parallel/ragged.py): the payload rides
-    # lax.ragged_all_to_all so ICI carries only the rows that actually
-    # routed (<= U per direction) instead of the dense factor*U padding;
-    # route drops move from per-(src,dst) overflow to total-receiver
-    # overflow (tighter concentration). Dense remains the default: XLA:CPU
-    # has no ragged-all-to-all lowering, so CPU meshes run the same plan
-    # over an element-exact emulated transport (tests cover it; production
-    # CPU deployments should stay dense).
+    # lax.ragged_all_to_all so the interconnect carries only the rows that
+    # actually routed (<= U per direction) instead of the dense factor*U
+    # padding; route drops move from per-(src,dst) overflow to
+    # total-receiver overflow (tighter concentration). Dense remains the
+    # default: XLA:CPU has no ragged-all-to-all lowering, so CPU meshes run
+    # the same plan over an element-exact emulated transport (tests cover
+    # it; production CPU deployments should stay dense).
     a2a_ragged: bool = False
     # Host-fetch lag of the sharded trainer (parallel/trainer.py): step i's
     # scalars/arrays are read back only at step i+depth, so the host never

@@ -99,8 +99,8 @@ def lookup(
     mechanism differs by dim regime:
     - dim <= 128 (window path): `lookup` registers fresh keys in the side
       planes but leaves their VALUES rows zero; the initializer values land
-      in `update`'s single scatter pass (XLA:TPU scatters rewrite the whole
-      values plane, so the fused path pays that pass once). `emb` itself
+      in `update`'s single scatter pass (one values-plane write per step).
+      `emb` itself
       already carries the correct initializer rows. An UNPAIRED train
       lookup therefore leaves fresh keys registered with zero value rows —
       the next lookup returns zeros for them, not the initializer. Use

@@ -15,9 +15,9 @@ self-attention over valid tokens + ReLU FFN) run on them. The encoded
 sequence is masked-mean-pooled and concatenated with the dense features,
 the raw target vector, and the pooled context features into the top MLP.
 
-TPU notes: attention is three batched [B*T, D] x [D, D] projections plus a
-[B, H, T, T] logits einsum — all MXU; T = bag_len + 1 is static so XLA sees
-fixed shapes. Padded tokens are masked out of the softmax (additive -1e9 on
+Shapes: attention is three batched [B*T, D] x [D, D] projections plus a
+[B, H, T, T] logits einsum; T = bag_len + 1 is static so XLA sees fixed
+shapes. Padded tokens are masked out of the softmax (additive -1e9 on
 KEYS) and zeroed before pooling; their gradients die at the sparse
 optimizer's slot<0 mask, matching pool_bags' contract. LayerNorm and softmax
 accumulate in f32 regardless of tower dtype.

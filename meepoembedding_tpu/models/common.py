@@ -23,9 +23,9 @@ def mlp_init(key, sizes: Sequence[int], in_dim: int, dtype=jnp.float32):
 
 def mlp_apply(params, x, final_activation: bool = False):
     """ReLU MLP; the last layer is linear unless final_activation. Matmuls
-    stay batched and 2-D so XLA tiles them onto the MXU. Activations are
-    kept in the params' dtype (bf16 params -> bf16 activations with f32
-    MXU accumulation — the standard TPU mixed-precision recipe)."""
+    stay batched and 2-D. Activations are kept in the params' dtype (bf16
+    params -> bf16 activations with f32 accumulation, the usual
+    mixed-precision recipe)."""
     n = len(params)
     for i, (w, b) in enumerate(params):
         x = (jnp.dot(x.astype(w.dtype), w,

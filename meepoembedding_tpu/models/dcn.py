@@ -6,8 +6,8 @@ Third CTR family next to DLRM and CTR-MLP (reference scope: README.md:2
     x_{l+1} = x_0 * (W_l x_l + b_l) + x_l        (full-rank DCNv2 cross)
 
 run in parallel with a deep ReLU tower over the same input; their concat
-feeds a final linear logit. TPU notes: every cross layer is one [B, I] x
-[I, I] matmul (MXU) plus elementwise ops XLA fuses; no dynamic shapes.
+feeds a final linear logit. Every cross layer is one [B, I] x [I, I]
+matmul plus elementwise ops XLA fuses; no dynamic shapes.
 Architecture follows the public DCNv2 formulation (Wang et al., 2021).
 """
 

@@ -5,7 +5,7 @@ README.md:2 "recommendation, search, CTR and advertising"). Three heads over
 shared per-feature embeddings, summed into one logit (Guo et al., 2017):
 
   - FM second order: 0.5 * sum_d[(sum_i e_id)^2 - sum_i e_id^2] — all
-    pairwise embedding interactions in O(S*D), pure VPU elementwise + sums
+    pairwise embedding interactions in O(S*D), pure elementwise + sums
     (no [S,S] materialization, unlike DLRM's dot-interaction).
   - first order: a learned per-feature projection w_i . e_i (the classic
     per-id scalar weight folded into the shared dynamic table — one table,
@@ -13,7 +13,7 @@ shared per-feature embeddings, summed into one logit (Guo et al., 2017):
   - deep: ReLU MLP (cfg.top_mlp) over [dense | flattened embeddings].
 
 Every op is a batched matmul or an XLA-fusable elementwise — no dynamic
-shapes, MXU-friendly.
+shapes.
 """
 
 from __future__ import annotations

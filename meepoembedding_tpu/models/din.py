@@ -14,8 +14,8 @@ The model declares `pools_inside = True`, so the trainers hand it the RAW
 L = 1 (attention over a single element is the identity), so DIN also runs —
 pointlessly but correctly — on one-hot data.
 
-TPU notes: the activation unit is one batched [B, S-1, L, 4D] x [4D, H]
-matmul chain (MXU); masking/softmax are VPU elementwise ops; nothing here
+Shapes: the activation unit is one batched [B, S-1, L, 4D] x [4D, H]
+matmul chain; masking/softmax are elementwise ops; nothing here
 introduces dynamic shapes or per-bag loops. All-padding bags pool to exact
 zeros (the masked softmax is renormalized by the bag's any-valid bit), and
 padded lanes' gradients die at the sparse optimizer's slot<0 mask, matching

@@ -2,8 +2,8 @@
 
 The sparse side (embedding lookups) is supplied by the dynamic table; this
 module is the dense computation: bottom MLP over dense features, pairwise
-dot-product feature interaction, top MLP to a CTR logit. TPU notes: the
-interaction is one batched [B, F, D] x [B, D, F] matmul (MXU), and the upper
+dot-product feature interaction, top MLP to a CTR logit. The interaction
+is one batched [B, F, D] x [B, D, F] matmul, and the upper
 triangle is extracted with a static mask (no dynamic shapes under jit).
 
 Reference-class behavior (DLRM/CTR per README.md:2 "recommendation, search,

@@ -8,9 +8,9 @@ space, trained with in-batch sampled softmax so that serving reduces to a
 top-k maximum-inner-product search over a precomputed item index
 (`meepoembedding_tpu.retrieval`).
 
-TPU notes: both towers are plain batched MLPs (MXU); the in-batch softmax
-logits are ONE [B, E] x [E, B] matmul per step — the classic TPU-friendly
-formulation (no per-example negative sampling, no gather of negatives).
+Both towers are plain batched MLPs; the in-batch softmax logits are ONE
+[B, E] x [E, B] matmul per step (no per-example negative sampling, no
+gather of negatives).
 Embeddings are L2-normalized with a learnable temperature (scaled cosine),
 which keeps the logit scale bounded under bf16 towers.
 

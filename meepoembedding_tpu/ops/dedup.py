@@ -2,9 +2,10 @@
 
 The reference class dedups ids on GPU before the table lookup and uses the
 inverse index to segment-sum gradients (BASELINE.json north-star: "all-to-all
-ID exchange and dedup before lookup"). Ids are (hi, lo) int32 pairs (no int64
-on TPU), so uniqueness is computed by lexicographic sort + neighbor compare —
-one fused XLA sort, static output size `size` (jit-friendly).
+ID exchange and dedup before lookup"). Ids are (hi, lo) int32 pairs (JAX
+runs without x64 by default), so uniqueness is computed by lexicographic
+sort + neighbor compare — one fused XLA sort, static output size `size`
+(jit-friendly).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from meepoembedding_tpu.table import hashing
 
@@ -31,8 +33,8 @@ def sorted_run_sums(ks: jax.Array, vs: jax.Array, disjoint: bool = False):
     compaction. Returns (key_of_rank [n], totals [n, d], live [n]) where rank
     r < num_runs holds run r's key and total.
 
-    XLA TPU lowers scatter-add with duplicate indices to a serialized
-    per-element loop (~200ns/element); everything here is vectorized.
+    Everything here is sorts, cumsums and unique-index sets (ROADMAP C4
+    re-prices these against direct scatters on the GPU).
 
     Exactness: integer runs are BIT-EXACT for any run content — int32 cumsum
     wraps mod 2^32 and the end-of-run differencing cancels the wrap, so even
@@ -80,6 +82,29 @@ def sorted_run_sums(ks: jax.Array, vs: jax.Array, disjoint: bool = False):
     return key_of_rank, totals, live
 
 
+# numpy, NOT jnp: a module-level jax Array constant can be hoisted as a
+# leading program parameter ahead of donated buffers
+_SENT = np.int32(2**31 - 1)
+
+
+def combine_rows_by_vrow(vrow: jax.Array, rowupd: jax.Array, enabled: jax.Array):
+    """Combine duplicate storage-row updates (slots sharing a packed row) so
+    unique-index scatters are race-free. Returns (uvrow [n], combined
+    [n, 128]): group g's total update at position g, disabled groups / tail
+    slots marked uvrow == -1. Scatter-add-free (see sorted_run_sums).
+
+    Callers guarantee lane-DISJOINT contributions within a group (slots are
+    unique, and slots sharing a storage row own disjoint lane windows), which
+    makes the float combine BIT-EXACT (byte-plane integer summation) — table
+    writes carry no batch-global cumsum rounding."""
+    key = jnp.where(enabled, vrow, _SENT)
+    order = jnp.argsort(key)
+    ks = jnp.take(key, order)
+    us = jnp.take(rowupd, order, axis=0)
+    gkey, combined, live = sorted_run_sums(ks, us, disjoint=True)
+    return jnp.where(live & (gkey != _SENT), gkey, -1), combined
+
+
 def sorted_segment_sum(values: jax.Array, seg: jax.Array, num_segments: int) -> jax.Array:
     """Scatter-add-free segment_sum: sort by segment, sum runs, one
     unique-index set into the output."""
@@ -95,18 +120,18 @@ def sorted_segment_sum(values: jax.Array, seg: jax.Array, num_segments: int) -> 
 
 def prefix_sum_i32(x: jax.Array) -> jax.Array:
     """Inclusive prefix sum of an i32 [n] stream (n a multiple of 128; pad
-    otherwise) via two MXU triangular matmuls instead of `jnp.cumsum`, which
-    XLA:TPU lowers to a ~7 ms log-pass chain at n=512K (measured; this path:
-    5.2 ms). Rows of [n/128, 128] cumsum on the MXU; row totals cumsum the
-    same way at n/128; exact in f32 for totals < 2^24 (flag streams)."""
+    otherwise) via two triangular matmuls instead of `jnp.cumsum` (ROADMAP
+    C4 re-prices the choice). Rows of [n/128, 128] cumsum by matmul; row
+    totals cumsum the same way at n/128; exact in f32 for totals < 2^24
+    (flag streams)."""
     n = x.shape[0]
     if n % 128 or n < 128:
         pad = -(-n // 128) * 128 - n
         return prefix_sum_i32(jnp.pad(x, (0, pad)))[:n]
     tri = jnp.tril(jnp.ones((128, 128), jnp.float32))
     rows = x.reshape(-1, 128).astype(jnp.float32)
-    # HIGHEST: exact f32 accumulation (TPU default matmul precision is bf16
-    # inputs, which would corrupt prefix totals past 256)
+    # HIGHEST: exact f32 accumulation (default precision may round the
+    # operands — TF32 on GPUs — which would corrupt prefix totals)
     within = jax.lax.dot(rows, tri.T, precision=jax.lax.Precision.HIGHEST)
     totals = within[:, -1]
     m = totals.shape[0]
@@ -136,16 +161,16 @@ def unique_pairs(hi: jax.Array, lo: jax.Array, size: int,
     If the true unique count exceeds `size`, the overflow ids alias the last
     slot (counted, never out-of-bounds) — callers size `size` to the batch.
 
-    Every O(n) step is expressed as a SORT or an MXU matmul — no 1-D
-    scatters, no `jnp.cumsum` (all measured 7+ ms each at n=512K on v5e,
-    more than the 6 ms 5-operand sort itself):
+    Every O(n) step is expressed as a SORT or a matmul — no 1-D scatters,
+    no `jnp.cumsum` (ROADMAP C4 re-prices these against the direct
+    primitives on the GPU):
       1. one multi-operand lexicographic sort groups duplicates;
-      2. group ids come from an MXU 2-level prefix sum of the run flags;
+      2. group ids come from a 2-level matmul prefix sum of the run flags;
       3. the inverse permutation is a second 2-operand sort by `order`
-         (4.9 ms vs the 7 ms unique-index 1-D scatter);
+         (instead of a unique-index 1-D scatter);
       4. the unique keys compact by a stable 3-operand flag sort: run
          starts (flag 0) float to the front IN ID ORDER, then slice [:size]
-         (5.6 ms vs two 7 ms 1-D scatters for hi and lo)."""
+         (instead of two 1-D scatters for hi and lo)."""
     n = hi.shape[0]
     with jax.named_scope("meepo.dedup"):
         # Bias keys for unsigned comparison of two's-complement halves;
@@ -193,10 +218,8 @@ def segment_sum_grads(grads: jax.Array, inverse: jax.Array, num_unique: int) -> 
     """[n, dim] per-occurrence grads -> [U, dim] per-unique-id grads
     (the backward half of dedup, SURVEY.md §3.3).
 
-    Implemented as ONE duplicate-tolerant row scatter-add in 128-lane space:
-    XLA's [R,128] row-granular scatter-add is fast on TPU even with duplicate
-    rows (~7ms for 512K), while sort-based segment sums pay an argsort plus a
-    padded-minor gather (a [n,32] gather runs ~6x slower than [n,128])."""
+    Implemented as ONE duplicate-tolerant row scatter-add in 128-lane space
+    (a sort-based segment sum would pay an argsort plus a gather)."""
     n, d = grads.shape
     dpad = -(-d // 128) * 128
     g = grads.astype(jnp.float32)

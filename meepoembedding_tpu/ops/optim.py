@@ -18,7 +18,6 @@ import jax.numpy as jnp
 
 from meepoembedding_tpu.config import OptimizerConfig
 from meepoembedding_tpu.table.layout import TableShard, TableSpec
-from meepoembedding_tpu.table.pallas_ops import combine_rows_by_vrow
 from meepoembedding_tpu.table.xla_ops import (
     _expand_row_update,
     gather_bucket_plane,
@@ -26,23 +25,21 @@ from meepoembedding_tpu.table.xla_ops import (
     scatter_add_bucket_plane,
     scatter_add_values,
     scatter_bucket_plane,
+    values_scatter_add,
 )
 
 
 def row_apply_delta(spec: TableSpec, plane, slot, delta, enabled):
     """plane[rows of slot] += delta as ONE duplicate-tolerant row scatter-add:
     each slot's delta expands to its 128-lane window (zeros elsewhere) and
-    lands with `.at[vrow].add`. XLA's [R,128] row-granular scatter-add is
-    fast on TPU even with duplicate rows (packed slots sharing a storage
-    row), and since slots are unique each ELEMENT receives at most one
-    nonzero contribution — the update is exact."""
+    lands with `.at[vrow].add`. Packed slots may share a storage row, but
+    since slots are unique each ELEMENT receives at most one nonzero
+    contribution — the update is exact."""
     vrow, rowupd = _expand_row_update(spec, slot, delta.astype(jnp.float32))
     if spec.dim <= 128:
         en = enabled
     else:
         en = jnp.repeat(enabled, spec.rows_per_slot)
-    from meepoembedding_tpu.table.stream_merge import values_scatter_add
-
     return values_scatter_add(plane, jnp.where(en, vrow, plane.shape[0]), rowupd)
 
 
@@ -50,9 +47,8 @@ def apply_sparse_grads_ctx(
     spec: TableSpec, shard: TableShard, ctx, gwin: jax.Array, g2_mean=None
 ) -> TableShard:
     """Fused update for the `xla_ops.lookup_train` hot path: the values plane
-    receives fresh-row INIT + optimizer delta in ONE scatter pass (XLA:TPU
-    scatter materializes the full plane, so each extra write costs a whole-
-    table pass), and fresh rows' accumulator init rides the accum scatter.
+    receives fresh-row INIT + optimizer delta in ONE scatter pass into the
+    donated plane, and fresh rows' accumulator init rides the accum scatter.
     Window-space [U, 128] grads; rowwise/sgd only (the production hot loop);
     other optimizer kinds take a two-pass fallback.
 
@@ -67,8 +63,6 @@ def apply_sparse_grads_ctx(
     gwin = jnp.where(enabled[:, None], gwin, 0).astype(jnp.float32)
     vrow = jnp.where(enabled, jnp.clip(slot, 0) // spec.pack, shard.values.shape[0])
     init_add = jnp.where(fresh[:, None], ctx.g128.astype(jnp.float32), 0.0)
-    from meepoembedding_tpu.table.stream_merge import values_scatter_add
-
     if opt.kind == "sgd":
         with jax.named_scope("meepo.values_update"):
             delta = init_add - opt.learning_rate * gwin
@@ -94,8 +88,8 @@ def apply_sparse_grads_ctx(
     from meepoembedding_tpu.table.xla_ops import scatter_add_values, window_extract
 
     # collapse the [U,128] window rows to [U,dim] before the row scatter —
-    # scatter_add_values expects row-space updates (ADVICE r1: passing g128
-    # directly broke the window-placement matmul for dim < 128)
+    # scatter_add_values expects row-space updates (passing g128 directly
+    # breaks the window-placement matmul for dim < 128)
     init_rows = window_extract(spec, ctx.g128, ctx.sub)
     values = scatter_add_values(spec, shard.values, slot, init_rows, fresh)
     shard = shard._replace(values=values)
@@ -123,8 +117,6 @@ def apply_sparse_grads_window(
     enabled = slot >= 0
     gwin = jnp.where(enabled[:, None], gwin, 0).astype(jnp.float32)
     vrow = jnp.where(enabled, jnp.clip(slot, 0) // spec.pack, shard.values.shape[0])
-    from meepoembedding_tpu.table.stream_merge import values_scatter_add
-
     if opt.kind == "sgd":
         values = values_scatter_add(shard.values, vrow, -opt.learning_rate * gwin)
         return shard._replace(values=values)

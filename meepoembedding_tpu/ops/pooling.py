@@ -4,13 +4,13 @@ The reference class serves TF-style recommenders whose sparse features are
 variable-length id BAGS pooled per example (`embedding_lookup_sparse` with a
 sum/mean/sqrtn combiner — README.md:2 "lookuptable-style ... Embedding").
 
-TPU-native layout: a bag is a fixed `[B, S, L]` id tensor padded with the
+Layout: a bag is a fixed `[B, S, L]` id tensor padded with the
 reserved invalid sentinel (`hashing.EMPTY_ID`) instead of ragged
 values+offsets — static shapes keep the whole step jittable, and padding ids
 ride the EXISTING invalid-id path end to end: dedup groups them into one
 invalid unique, lookups return zero rows for it, and its gradients are
 dropped by the slot<0 mask in the sparse optimizer. Pooling itself is then
-pure VPU arithmetic over the gathered rows; no new table machinery.
+pure elementwise arithmetic over the gathered rows; no new table machinery.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ exchange + data parallelism exactly as in `parallel/trainer.py`; axis `c`
 splits the FEATURE dimension — column chip c holds lanes
 [c*dim/C, (c+1)*dim/C) of every logical row.
 
-The TPU-native trick that makes this cheap: the key/metadata planes are kept
+The trick that makes this cheap: the key/metadata planes are kept
 in lockstep across `c` BY DETERMINISM, not by collectives. probe /
 plan_insert / admission are pure functions of (key planes, ids); every
 column chip receives the identical id stream (batch replicated over `c`),
@@ -17,7 +17,7 @@ so their key-side state evolves bit-identically with ZERO communication on
     initializer's lane stream so concatenating the column blocks is
     bit-identical to an unsharded full-dim init (hashing.default_rows);
   - the ID all-to-all rides `d` within each column slice, and the row/grad
-    payloads carry dim/C lanes per chip — exchange ICI volume scales DOWN
+    payloads carry dim/C lanes per chip — exchange volume scales DOWN
     by C (the reason to column-shard very wide embeddings at all);
   - the dense tower all_gathers the [U, dim/C] blocks over `c` (feature-axis
     concat) outside the autodiff boundary; tower grads are computed
@@ -62,7 +62,8 @@ COL_AXIS = "c"
 
 def make_mesh2d(num_row: int, num_col: int, devices=None) -> Mesh:
     """('d', 'c') mesh: `d` strides over device groups so each row slice is
-    ICI-contiguous (the a2a rides `d`; the cheap all_gather rides `c`)."""
+    contiguous in device order (the a2a rides `d`; the cheap all_gather
+    rides `c`)."""
     devs = list(devices if devices is not None else jax.devices())
     need = num_row * num_col
     assert len(devs) >= need, f"need {need} devices, have {len(devs)}"
@@ -79,15 +80,16 @@ def col_local_spec(spec: TableSpec, num_col: int) -> TableSpec:
 
 
 def alloc_col_stacked(spec_local: TableSpec, mesh: Mesh):
-    """Empty shards stacked [S, C, ...], sharded over both mesh axes."""
+    """Empty shards stacked [S, C, ...], sharded over both mesh axes (the
+    prototype is built inside the jit, as in trainer.alloc_stacked_shards)."""
     S, C = mesh.shape[SHARD_AXIS], mesh.shape[COL_AXIS]
-    proto = alloc_shard(spec_local)
     sharding = NamedSharding(mesh, P(SHARD_AXIS, COL_AXIS))
 
     @partial(jax.jit, out_shardings=sharding)
     def _alloc():
         return jax.tree.map(
-            lambda a: jnp.broadcast_to(a[None, None], (S, C) + a.shape), proto
+            lambda a: jnp.broadcast_to(a[None, None], (S, C) + a.shape),
+            alloc_shard(spec_local),
         )
 
     return _alloc()

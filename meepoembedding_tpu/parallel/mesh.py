@@ -1,9 +1,9 @@
 """Device mesh + multi-host process-group setup (SURVEY.md C15).
 
 The reference class's communication backend is NCCL between GPUs plus
-RPC/Redis to remote storage (README.md:2 "distributed"). The TPU-native
-equivalent: XLA collectives over ICI within a pod slice and DCN across
-slices — no hand-written transport. This module owns mesh construction and
+RPC/Redis to remote storage (README.md:2 "distributed"). Here: XLA
+collectives (NCCL on GPUs) emitted from `shard_map`ped code — no
+hand-written transport. This module owns mesh construction and
 `jax.distributed` initialization; every collective in the framework is
 emitted by XLA from `shard_map`ped code.
 
@@ -30,9 +30,9 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ):
-    """Multi-host rendezvous (SURVEY.md §3.1). No-op when single-process or
-    when the environment (TPU pod runtime) auto-configures. Safe to call
-    twice."""
+    """Multi-host rendezvous (SURVEY.md §3.1). No-op when single-process;
+    with only COORDINATOR_ADDRESS set, `jax.distributed.initialize()` reads
+    the rest of the cluster from the environment. Safe to call twice."""
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(
             coordinator_address=coordinator,

@@ -1,8 +1,8 @@
 """Multi-host process-group utilities (SURVEY.md C15, L3; BASELINE config 5).
 
-The reference class coordinates workers over NCCL/MPI + a remote KV; the TPU
-equivalent is `jax.distributed` (DCN rendezvous) + XLA collectives over
-ICI/DCN inside the jitted step — no hand-written transport. This module wraps
+The reference class coordinates workers over NCCL/MPI + a remote KV; here
+it is `jax.distributed` (process rendezvous) + XLA collectives inside the
+jitted step — no hand-written transport. This module wraps
 process-group init and the host-boundary data movements that differ between
 single- and multi-process runs:
 

@@ -1,12 +1,12 @@
 """Ragged all-to-all ID/row/grad exchange (SURVEY.md C13, §3.2-3.3).
 
 The dense exchange (`sharded_table.py`) ships fixed `[S, cap]` buffers per
-direction: ICI carries `factor * U` rows regardless of how many ids actually
-routed anywhere (the padding IS the drop-freedom). This module is the ragged
-variant the blueprint names ("ICI ragged_all_to_all", SURVEY.md C13): the
-send buffer is the owner-sorted compaction of the local uniques, per-pair
-counts ride two tiny `[S, 2]` dense all_to_alls, and the payload collective
-is `lax.ragged_all_to_all` — ICI carries exactly the routed rows.
+direction: the interconnect carries `factor * U` rows regardless of how many
+ids actually routed anywhere (the padding IS the drop-freedom). This module
+is the ragged variant the blueprint names (SURVEY.md C13): the send buffer
+is the owner-sorted compaction of the local uniques, per-pair counts ride a
+tiny `[S, 2]` all_gather, and the payload collective is
+`lax.ragged_all_to_all` — the wire carries exactly the routed rows.
 
 What changes vs dense, concretely:
   payload volume   `sum(send_sizes)` <= U rows per direction instead of
@@ -20,13 +20,17 @@ What changes vs dense, concretely:
   owner compute    identical: the owner re-dedups/looks up over `rcap` slots
                    vs the dense `S*cap = factor*U` — same size.
 
-Transport selection: XLA:CPU has no `ragged-all-to-all` lowering (verified:
-"HLO opcode `ragged-all-to-all` is not supported by XLA:CPU ThunkEmitter"),
-so on CPU meshes the SAME plan runs over a dense-emulated transport that is
-element-exact to the ragged collective's write semantics — every plan/clamp/
-inverse test on the 8-vdev CPU mesh therefore covers the real path's logic;
-the TPU lowering itself is smoke-tested on hardware via FORCE_EXCHANGE at
-S=1 (bench_sharded_overhead.py prices it).
+Transport: on every backend the plan runs over a dense-emulated transport
+that is element-exact to the ragged collective's write semantics, so every
+plan/clamp/inverse test on the 8-vdev CPU mesh covers the production path.
+XLA:CPU cannot lower `ragged-all-to-all` ("HLO opcode `ragged-all-to-all` is
+not supported by XLA:CPU ThunkEmitter"). XLA:GPU lowers it, but on four H100s
+the sharded step over it lost ids that the same step over the emulation kept
+(ROADMAP B9): its one-shot kernel is at fault, since with
+`--xla_gpu_unsupported_use_ragged_all_to_all_one_shot_kernel=false` the
+collective matched. `EMULATE_TRANSPORT = False` selects the collective.
+The emulation ships S*U rows per direction, so the payload saving above
+waits on B9; the drop model and owner compute hold as described.
 
 The reference class implements this as NCCL ragged/grouped all-to-all
 (BASELINE north-star: "all-to-all ID exchange and dedup before lookup").
@@ -46,15 +50,9 @@ from meepoembedding_tpu.table import hashing, xla_ops
 from meepoembedding_tpu.table.layout import TableShard, TableSpec
 from meepoembedding_tpu.table.xla_ops import _segmented_rank
 
-# Tests force the emulated transport on (True) or the real collective on
-# (False); None = auto by backend (real on TPU, emulated elsewhere).
-EMULATE_TRANSPORT = None
-
-
-def _use_emulation() -> bool:
-    if EMULATE_TRANSPORT is not None:
-        return bool(EMULATE_TRANSPORT)
-    return jax.default_backend() != "tpu"
+# True: the emulated transport (every backend until ROADMAP B9 is fixed);
+# False: `lax.ragged_all_to_all`. Read when a step is traced.
+EMULATE_TRANSPORT = True
 
 
 def ragged_recv_cap(unique_cap: int, num_shards: int, factor: float = 1.25) -> int:
@@ -114,8 +112,7 @@ def make_plan(uh, ul, valid, S: int, rcap: int, axis: str,
         sendpos = jnp.zeros((n,), jnp.int32).at[order].set(idx)
         ks = jnp.take(owner, order)
     # Segment geometry straight from the sorted owners: S+1 binary searches,
-    # no [n]-sized scatter/bincount (1-D scatters measured 7+ ms at n=512K
-    # on v5e — the same pathology the dedup rewrite removed).
+    # no [n]-sized scatter/bincount.
     bounds = jnp.searchsorted(
         ks, jnp.arange(S + 1, dtype=ks.dtype), side="left"
     ).astype(jnp.int32)
@@ -161,11 +158,11 @@ def make_plan(uh, ul, valid, S: int, rcap: int, axis: str,
 
 
 def _transport(operand, output, in_off, send, out_off, recv, axis: str):
-    """One ragged payload exchange. Real `lax.ragged_all_to_all` on TPU;
-    on CPU an element-exact emulation over a dense all_to_all (pad each
-    outgoing segment to the operand length, compact at the receive offsets).
+    """One ragged payload exchange: an element-exact emulation over a dense
+    all_to_all (pad each outgoing segment to the operand length, compact at
+    the receive offsets), or the real `lax.ragged_all_to_all`.
     Non-received output positions keep `output`'s prefill in BOTH paths."""
-    if not _use_emulation():
+    if not EMULATE_TRANSPORT:
         return lax.ragged_all_to_all(
             operand, output, in_off, send, out_off, recv, axis_name=axis
         )

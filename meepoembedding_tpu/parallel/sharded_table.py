@@ -2,7 +2,7 @@
 
 Runs INSIDE `jax.shard_map` over the mesh axis `d`. Each device owns one
 TableShard; `owner(key) = hash(key) >> k` routes every id to exactly one
-shard. The exchange is the MoE-dispatch communication pattern, on ICI:
+shard. The exchange is the MoE-dispatch communication pattern:
 
   source side   dedup local batch ids, bucket by owner, place into a
                 [S, cap] send buffer (static per-destination capacity —
@@ -17,8 +17,8 @@ Gradients reverse the exact forward plan and are segment-summed on the owner
 before one in-place sparse-optimizer update per key (SURVEY.md §3.3).
 
 The reference class implements this with NCCL all-to-all + CUDA dedup
-(BASELINE north-star: "row-sharded across a multi-host TPU pod slice with
-all-to-all ID exchange and dedup before lookup").
+(BASELINE north-star: row-sharded across hosts, with all-to-all ID
+exchange and dedup before lookup).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ ROUTE_DROPS = 8  # counters index (extends layout counter names)
 # uses it to price the exchange without multi-chip hardware).
 FORCE_EXCHANGE = False
 
-# bf16 tables ship gradients over the a2a in bf16 (half the ICI bytes).
+# bf16 tables ship gradients over the a2a in bf16 (half the wire bytes).
 # PARITY NOTE (advisor r3): the quantization happens BEFORE the owner-side
 # duplicate segment-sum and the f32 rowwise-adagrad accumulator update, so
 # S>1 numerics differ in the last bf16 ulp from the S==1 fast path (which
@@ -97,8 +97,8 @@ def _a2a_ids(uh, ul, o, pos, S: int, cap: int, axis: str):
     """Route (hi, lo) id halves to owners in ONE fused all_to_all.
 
     The two i32 halves ride as the last axis of a single [S, cap, 2] buffer,
-    so the exchange pays one collective (one ICI launch + one DMA plan)
-    instead of two back-to-back [S, cap] transfers. Payload bytes are
+    so the exchange pays one collective launch instead of two back-to-back
+    [S, cap] transfers. Payload bytes are
     identical; the saving is per-collective overhead, which at production
     cap sizes is the dominant cost of a small-message a2a."""
     send = jnp.stack(
@@ -129,7 +129,7 @@ def exchange_lookup(
     """Sharded find_or_insert + gather for local unique ids.
     Returns (shard', emb_u [U, dim], ctx for the gradient reverse path).
 
-    ragged=True routes the payload over parallel/ragged.py (ICI carries only
+    ragged=True routes the payload over parallel/ragged.py (the wire carries only
     the routed rows; `cap` is then the RECEIVER total = ragged_recv_cap, not
     the dense per-pair capacity). The S==1 fast path is shared."""
     S = lax.axis_size(axis)
@@ -178,7 +178,7 @@ def exchange_lookup(
     if train and spec.dim <= 128:
         # fused window-space owner-side lookup (xla_ops.lookup_train): rows
         # stay at 128 lanes through the dedup-inverse expansion; the [.., dim]
-        # view only materializes for the a2a payload (ICI volume stays dim)
+        # view only materializes for the a2a payload (wire volume stays dim)
         shard, lctx = xla_ops.lookup_train(
             spec, shard, runiq.hi, runiq.lo, runiq.valid, step
         )
@@ -246,7 +246,7 @@ def exchange_apply_grads(
     o = jnp.where(ctx.ok, ctx.owner, S)
     # Gradients ride the wire in the TABLE dtype: a bf16 table's update math
     # quantizes to bf16 on write anyway, so shipping f32 grads would spend
-    # 2x the ICI bytes to carry precision the row can't hold. The owner-side
+    # 2x the wire bytes to carry precision the row can't hold. The owner-side
     # segment-sum still runs in f32 (cast right after the a2a) so duplicate
     # contributions accumulate at full precision. See GRAD_WIRE_BF16 above
     # for the S==1-vs-S>1 parity implications and the opt-out.

@@ -4,7 +4,7 @@ One jitted `shard_map` step over the 1-D mesh axis `d`:
   - batch sharded over `d` (data parallelism for the dense tower, C14);
   - one TableShard per device (row-sharded model parallelism, C12);
   - all-to-all ID/row/grad exchange inside the step (C13);
-  - dense grads `pmean`ed over ICI, identical dense update on every device.
+  - dense grads `pmean`ed over the mesh, identical dense update on every device.
 
 Table state is stacked [S, ...] with a leading device axis sharded over `d`
 and donated, so the 1B-row target never double-allocates.
@@ -397,14 +397,16 @@ def drain_promotions(mesh, spec, stacked, promoter, promote_fn, chunk, step):
 
 def alloc_stacked_shards(spec: TableSpec, mesh) -> "TableShard":
     """Empty per-device shards, stacked on a leading sharded axis. All shards
-    start identical, so a broadcast placed with the right sharding suffices."""
+    start identical, so a broadcast placed with the right sharding suffices.
+    The prototype is built inside the jit: an eager one would sit on the
+    first device and be captured into the program as a constant."""
     S = mesh.shape[SHARD_AXIS]
-    proto = alloc_shard(spec)
     sharding = NamedSharding(mesh, P(SHARD_AXIS))
 
     @partial(jax.jit, out_shardings=sharding)
     def _alloc():
-        return jax.tree.map(lambda a: jnp.broadcast_to(a[None], (S,) + a.shape), proto)
+        return jax.tree.map(lambda a: jnp.broadcast_to(a[None], (S,) + a.shape),
+                            alloc_shard(spec))
 
     return _alloc()
 

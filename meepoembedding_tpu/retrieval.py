@@ -2,12 +2,12 @@
 retrieval half; pairs with models/two_tower.py).
 
 `ItemIndex` is a brute-force maximum-inner-product index kept on device:
-top-k over N items is a [Q, E] x [E, N] matmul (MXU) followed by
-`lax.top_k`, chunked over the item axis with a running top-k merge so the
-score matrix never materializes beyond [Q, chunk]. On one chip this is
-exact (no ANN approximation) and fast: a v5e MXU sustains ~200 GFLOP per
-10M-item x 64-dim query batch of 256 — index size, not compute, is the
-practical bound (HBM holds ~100M items at dim 64 bf16).
+top-k over N items is a [Q, E] x [E, N] matmul followed by `lax.top_k`,
+chunked over the item axis with a running top-k merge so the score matrix
+never materializes beyond [Q, chunk]. On one card this is exact (no ANN
+approximation); a 10M-item x 64-dim index against a query batch of 256 is
+~330 GFLOP, so index size in device memory, not compute, is the practical
+bound.
 
 `RetrievalService` wraps a restored checkpoint (via `ScoringService`, so
 int8-quantized tables work too): item-side embeddings are precomputed

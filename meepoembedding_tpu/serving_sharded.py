@@ -6,7 +6,7 @@ fit one chip, so serving must span the mesh exactly like training does).
 shard count) row-sharded over a `jax.sharding.Mesh` and scores request
 batches through the probe-only all-to-all exchange
 (`sharded_table.exchange_lookup(train=False)`): ids dedup locally, route to
-their owner shard over ICI, rows ride back, unknown ids contribute zero
+their owner shard over the all-to-all, rows ride back, unknown ids contribute zero
 embeddings, and every id that overflows the exchange capacity is COUNTED
 (`route_drops` — a dropped id silently scores with a zero row, so serving
 surfaces it in /metrics rather than hiding it).

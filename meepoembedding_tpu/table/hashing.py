@@ -1,9 +1,9 @@
 """Stateless uint32 hashing for 64-bit feature ids (SURVEY.md C1/C2).
 
-TPU JAX has no native int64, so a feature id `k` (arbitrary int64,
-README.md:2 "lookuptable-style") lives on device as a pair of int32 planes
-(hi = k >> 32, lo = k & 0xffffffff). All hashing is uint32 arithmetic
-(wrapping multiply/xor/shift are single VPU ops).
+JAX runs without 64-bit types by default, so a feature id `k` (arbitrary
+int64, README.md:2 "lookuptable-style") lives on device as a pair of int32
+planes (hi = k >> 32, lo = k & 0xffffffff). All hashing is uint32
+arithmetic (wrapping multiply/xor/shift).
 
 The int64 value INT64_MIN is reserved as the invalid/padding id; user ids
 must never equal it (the data pipeline guarantees this by remapping).
@@ -58,7 +58,7 @@ def fmix32(h):
 
 
 def hash_pair(hi, lo, salt) -> jnp.ndarray:
-    """uint32 hash of an (hi, lo) id pair under a salt. VPU-only ops."""
+    """uint32 hash of an (hi, lo) id pair under a salt. Elementwise ops only."""
     uhi = hi.astype(jnp.uint32)
     ulo = lo.astype(jnp.uint32)
     h = (ulo * jnp.uint32(0xCC9E2D51)) ^ (uhi * jnp.uint32(0x1B873593)) ^ jnp.uint32(salt)

@@ -1,7 +1,7 @@
-"""HBM hash-table layout (SURVEY.md C1).
+"""Device-memory hash-table layout (SURVEY.md C1).
 
-A shard of a dynamic table is a set of flat JAX arrays sized for zero TPU
-tile padding (f32/i32 tiles are (8, 128); every plane's last dim is 128):
+A shard of a dynamic table is a set of flat JAX arrays whose last dim is
+always 128 (no padding in (8, 128)-tiled layouts):
 
   bucket geometry   one bucket == one 128-lane row; probing a bucket is a
                     single vector compare. `nb` buckets (power of two) give

@@ -1,9 +1,9 @@
 """Table storage ops as vectorized XLA programs (SURVEY.md C2/C3/C10, L0).
 
 The reference class implements these as CUDA kernels (probe/insert, gather,
-scatter-update over a device hash table — README.md:2, .gitignore:4-27).
-On TPU there is no per-thread atomics model; instead every op here is a
-*batched, fully vectorized* program over the whole lookup batch:
+scatter-update over a device hash table). Here every op is a *batched,
+fully vectorized* XLA program over the whole lookup batch, with no
+per-thread control flow:
 
   probe          R unrolled rounds of linear bucket probing; one round ==
                  one row-gather of the key planes + one 128-wide compare.
@@ -13,11 +13,10 @@ On TPU there is no per-thread atomics model; instead every op here is a
                  across probing rounds. Hole-safe after evictions.
   gather/scatter row-granular value access: logical rows are packed
                  128//dim per storage row, gathered as whole rows and
-                 packed/unpacked lane-locally (VPU-only).
+                 packed/unpacked lane-locally.
 
 Everything is jittable with static shapes; `jax.jit` donation of the shard
-gives in-place HBM updates. The Pallas kernels in `pallas_ops.py` replace
-the hot gather/scatter paths where XLA's generic gather is slower.
+gives in-place device-memory updates (XLA aliases the donated planes).
 """
 
 from __future__ import annotations
@@ -63,10 +62,9 @@ def probe(spec: TableSpec, shard: TableShard, uh, ul, valid) -> ProbeResult:
     beyond `max_probe_rounds`, so non-membership is decided without any
     chain-termination bookkeeping).
 
-    TPU-shaped deliberately:
-    - NO dynamic control flow: measured on v5e, a lax.cond costs 12-16 ms
-      even when NOT taken (packed-bool operand layouts) and one while_loop
-      iteration ~35 ms, versus ~6 ms for an unconditional probing round.
+    Shaped deliberately:
+    - NO dynamic control flow: every round runs (ROADMAP C5 re-prices a
+      lax.cond against an unconditional round on the GPU).
     - ONE [n, 512] gather per TWO rounds: both key planes of bucket pair
       {2p, 2p+1} ride a single 2 KiB row (XOR probing keeps rounds 2g/2g+1
       in one pair), halving gather ops and doubling DMA row width."""
@@ -77,12 +75,11 @@ def probe(spec: TableSpec, shard: TableShard, uh, ul, valid) -> ProbeResult:
 
     slot = jnp.full((n,), -1, jnp.int32)
     found = jnp.zeros((n,), bool)
-    # Gather geometry, measured on v5e at n=512K: random-row gather cost is
-    # dominated by per-row overhead, so WIDER rows win — one [n,512] gather
-    # of a concat'd [hi|lo] pair plane runs 14.4 ms vs 18.2 ms for two
-    # [n,256] gathers of the separate planes. The concat materializes 2x the
-    # key bytes each step, so for very large tables (where that transient
-    # threatens HBM headroom) the two-gather form is used instead.
+    # Gather geometry: one [n,512] gather of a concat'd [hi|lo] pair plane
+    # instead of two [n,256] gathers of the separate planes (fewer, wider
+    # rows). The concat materializes 2x the key bytes each step, so for very
+    # large tables (where that transient threatens device-memory headroom)
+    # the two-gather form is used instead.
     concat_ok = shard.key_hi.size * 8 <= (512 << 20)
     if nb >= 2:
         hi_pair = shard.key_hi.reshape(nb // 2, 2 * LANES)
@@ -159,8 +156,8 @@ def _plan_insert_impl(spec: TableSpec, shard: TableShard, uh, ul, want):
         order, rank_sorted = _segmented_rank(sort_key)
         rank = jnp.zeros((n,), jnp.int32).at[order].set(rank_sorted)
         # Free lanes of each key's bucket: pick the (eff_rank+1)-th free lane
-        # via a lane cumsum + argmax. (A [n,128] lane argsort here measured
-        # tens of ms at n=512K — it poisoned every step that had >= 1 miss.)
+        # via a lane cumsum + argmax (a [n,128] lane argsort would cost every
+        # step that has >= 1 miss far more).
         kh = jnp.take(shard.key_hi, b, axis=0)
         kl = jnp.take(shard.key_lo, b, axis=0)
         free = (kh == hashing.EMPTY_HI) & (kl == hashing.EMPTY_LO)  # [n,128]
@@ -202,9 +199,7 @@ def plan_insert(spec: TableSpec, shard: TableShard, uh, ul, want) -> InsertPlan:
     `claimed` tally keeps later probing rounds consistent with earlier ones.
 
     Rounds are UNROLLED, each guarded by a lax.cond on whether anything is
-    still pending (while_loop iterations cost ~35 ms of loop machinery on
-    TPU; untaken conds are ~free — the steady-state all-hit step pays
-    nothing here).
+    still pending (the steady-state all-hit step skips them).
 
     spec.insert_cap bounds ADMITTED inserts per call: pending keys are
     compacted to that static size, so the planning sorts/gathers run at the
@@ -244,9 +239,8 @@ def plan_insert(spec: TableSpec, shard: TableShard, uh, ul, want) -> InsertPlan:
 def _window_select_mats(spec: TableSpec):
     """Constant [128, dim] matrices E_p extracting lane window p, and their
     transposes for the reverse (expand) direction. Lane-window pack/unpack as
-    masked matmuls keeps everything in 128-lane space — a naive
-    reshape-to-[n, pack, dim] forces a pack-x relayout (the minor dim gets
-    re-padded to 128 lanes), measured 775x slower on TPU."""
+    masked matmuls keeps everything in 128-lane space instead of a
+    reshape-to-[n, pack, dim] relayout (ROADMAP C3 re-prices that choice)."""
     d, p = spec.dim, spec.pack
     eye = jnp.eye(LANES, dtype=jnp.float32)
     return [eye[:, i * d : (i + 1) * d] for i in range(p)]
@@ -265,9 +259,9 @@ def gather_values(spec: TableSpec, plane: jax.Array, slot: jax.Array) -> jax.Arr
         out = jnp.zeros((n, spec.dim), jnp.float32)
         for p, ep in enumerate(_window_select_mats(spec)):
             m = (sub == p).astype(jnp.float32)[:, None]
-            # HIGHEST: default TPU matmul precision rounds operands to bf16,
-            # silently truncating f32 rows (ADVICE r1); one-hot selections
-            # are bit-exact under HIGHEST.
+            # HIGHEST: default matmul precision may round f32 operands (TF32
+            # on GPUs), silently truncating rows; one-hot selections are
+            # bit-exact under HIGHEST.
             out = out + jnp.dot(g * m, ep, preferred_element_type=jnp.float32,
                                 precision=jax.lax.Precision.HIGHEST)
         return out.astype(plane.dtype)
@@ -298,12 +292,17 @@ def _expand_row_update(spec: TableSpec, slot, upd):
     return idx.reshape(-1), upd.reshape(n * rps, LANES)
 
 
-def scatter_add_values(spec: TableSpec, plane, slot, upd, enabled) -> jax.Array:
-    """plane[slot rows] += upd, row-granular (duplicate storage rows OK).
-    Dispatches to the in-place stream-merge kernel for big planes (XLA's
-    scatter double-buffers the whole plane)."""
-    from meepoembedding_tpu.table.stream_merge import values_scatter_add
+def values_scatter_add(plane, vrow, upd) -> jax.Array:
+    """plane[vrow[j]] += upd[j] for an [R, 128] values plane. Duplicate rows
+    sum; vrow outside [0, R) drops the row. On a donated plane XLA updates
+    the buffer in place."""
+    R = plane.shape[0]
+    idx = jnp.where((vrow >= 0) & (vrow < R), vrow, R)
+    return plane.at[idx].add(upd.astype(plane.dtype), mode="drop")
 
+
+def scatter_add_values(spec: TableSpec, plane, slot, upd, enabled) -> jax.Array:
+    """plane[slot rows] += upd, row-granular (duplicate storage rows OK)."""
     vrow, rowupd = _expand_row_update(spec, slot, upd.astype(plane.dtype))
     if spec.dim <= LANES:
         vrow = jnp.where(enabled, vrow, plane.shape[0])
@@ -316,42 +315,17 @@ def scatter_add_values(spec: TableSpec, plane, slot, upd, enabled) -> jax.Array:
 def scatter_set_values(spec: TableSpec, plane, slot, rows, enabled) -> jax.Array:
     """plane[slot] = rows. Row-granular read-modify-write: expand each row
     into its 128-lane window, combine slots sharing a storage row (windows
-    are disjoint), merge with the gathered old rows, scatter-SET unique.
-    The obvious element-granular scatter serializes on TPU (~200ns/elem).
-    Planes past the stream threshold take the in-place stream-merge SET
-    kernel — XLA's SET double-buffers the whole plane, which cannot fit for
-    >HBM/2 tables (the 100M-row restore path)."""
-    from meepoembedding_tpu.table.stream_merge import (
-        BLOCKR,
-        STREAM_THRESHOLD_BYTES,
-        stream_merge_set,
-    )
+    are disjoint), merge with the gathered old rows, scatter-SET unique."""
+    from meepoembedding_tpu.ops.dedup import combine_rows_by_vrow
 
     n = slot.shape[0]
     s = jnp.clip(slot, 0)
-    big = (
-        plane.size * plane.dtype.itemsize >= STREAM_THRESHOLD_BYTES
-        and plane.shape[0] % BLOCKR == 0
-    )
     if spec.dim > LANES:
         rps = spec.rows_per_slot
         idx = s[:, None] * rps + jnp.arange(rps, dtype=jnp.int32)[None, :]
         idx = jnp.where(enabled[:, None], idx, plane.shape[0]).reshape(-1)
         rr = rows.astype(plane.dtype).reshape(n * rps, LANES)
-        if big:
-            return stream_merge_set(plane, idx, rr, jnp.ones_like(rr))
         return plane.at[idx].set(rr, mode="drop", unique_indices=True)
-    if big:
-        vrow, rowvals = _expand_row_update(spec, slot, rows.astype(jnp.float32))
-        sub = s % spec.pack
-        window = (
-            jax.lax.broadcasted_iota(jnp.int32, (n, LANES), 1) // spec.dim
-        ) == sub[:, None]
-        marks = jnp.where(window, 1.0, 0.0)
-        vrow = jnp.where(enabled, vrow, plane.shape[0])
-        return stream_merge_set(plane, vrow, rowvals, marks)
-    from meepoembedding_tpu.table.pallas_ops import combine_rows_by_vrow
-
     vrow, rowvals = _expand_row_update(spec, slot, rows.astype(jnp.float32))
     sub = s % spec.pack
     d = spec.dim
@@ -386,7 +360,7 @@ def scatter_bucket_plane(plane, slot, val, enabled):
     rows = jnp.where(onehot, val[:, None], jnp.zeros((), acc_dtype))
     marks = jnp.where(onehot, jnp.ones((), acc_dtype), jnp.zeros((), acc_dtype))
     both = jnp.concatenate([rows, marks], axis=1)  # combine in one pass
-    from meepoembedding_tpu.table.pallas_ops import combine_rows_by_vrow
+    from meepoembedding_tpu.ops.dedup import combine_rows_by_vrow
 
     ub, comb = combine_rows_by_vrow(b, both, enabled)
     new_vals, mask = comb[:, :LANES], comb[:, LANES:] > 0
@@ -398,10 +372,8 @@ def scatter_bucket_plane(plane, slot, val, enabled):
 
 def scatter_add_bucket_plane(plane, slot, val, enabled):
     """plane[(slot // 128, slot %% 128)] += val via one-hot row expansion +
-    a duplicate-tolerant row scatter-add. XLA's [R,128] row-granular
-    scatter-add is fast on TPU even with duplicate rows (measured ~7ms for
-    512K rows); slots are unique, so per ELEMENT there is at most one nonzero
-    contribution — the add is exact."""
+    a duplicate-tolerant row scatter-add. Slots are unique, so per ELEMENT
+    there is at most one nonzero contribution — the add is exact."""
     n = slot.shape[0]
     b, lane = slot // LANES, slot % LANES
     onehot = jax.lax.broadcasted_iota(jnp.int32, (n, LANES), 1) == lane[:, None]
@@ -557,13 +529,11 @@ def lookup_train(
     from the deterministic initializer; the values table receives
     init + optimizer-delta in apply_sparse_grads_window's SINGLE scatter.
 
-    Why: XLA:TPU scatter is never in-place — every scatter materializes its
-    full output plane — so each extra values-plane write costs a whole-table
-    pass (13+ ms at 4 GB). Reading values BEFORE any write also keeps the
-    plane single-use, avoiding a second copy; and with no lax.cond around the
-    insert block there is no conditional pass-through of big planes either
-    (~10 ms of select/mul per step). Side planes ([nb,128]) are small, so
-    their unconditional ADD-scatter passes are cheap."""
+    Why: one values-plane write per step. Reading values BEFORE any write
+    keeps the plane single-use, so XLA can update the donated plane in
+    place; and with no lax.cond around the insert block there is no
+    conditional pass-through of the big plane either. Side planes
+    ([nb,128]) are small, so their ADD-scatter passes are cheap."""
     with jax.named_scope("meepo.probe"):
         pr = probe(spec, shard, uh, ul, valid)
     miss = valid & ~pr.found
@@ -585,11 +555,9 @@ def lookup_train(
         init_win = window_place(spec, init_rows, sub)
         g128 = jnp.where(fresh[:, None], init_win.astype(g128.dtype), g128)
 
-    # Side-plane writes (exact ADDs over zeroed free slots). Each [nb,128]
-    # scatter materializes its full plane (~6 ms at 2^25 capacity), so the
-    # fresh-only writes sit under a lax.cond that steady-state all-hit steps
-    # skip — the cond carries ONLY the small planes (cheap pass-through),
-    # never the values plane.
+    # Side-plane writes (exact ADDs over zeroed free slots). The fresh-only
+    # writes sit under a lax.cond that steady-state all-hit steps skip — the
+    # cond carries ONLY the small planes, never the values plane.
     fresh_i = fresh.astype(jnp.int32)  # bool operands pay packed-layout costs
 
     def do_fresh_writes(planes):
@@ -638,13 +606,11 @@ def lookup_train(
 
 # --- 128-lane window-space hot path (dim < 128) -------------------------------
 #
-# Padded-minor ops are poison on TPU: a [n, 32] gather runs ~6x slower than a
-# [n, 128] one (the [n,32] inverse expansion alone measured 20 ms vs ~2.4 ms
-# at 128 lanes). The training hot path therefore keeps rows in their PACKED
-# 128-lane storage form ("window space": a slot's dim values live at lanes
-# [sub*dim, (sub+1)*dim)) through lookup, inverse expansion, gradient
-# collection and the optimizer update; the [*, dim] view only materializes at
-# the model boundary via MXU window extract/place matmuls.
+# The training hot path keeps rows in their PACKED 128-lane storage form
+# ("window space": a slot's dim values live at lanes [sub*dim, (sub+1)*dim))
+# through lookup, gradient collection and the optimizer update; the
+# [*, dim] view only materializes at U-level via window extract/place
+# matmuls (ROADMAP C3 asks whether the direct [cap, dim] layout is faster).
 
 def lookup_rows128(spec: TableSpec, shard: TableShard, slot):
     """[U] slots -> ([U, 128] masked storage rows, [U] window index)."""
@@ -687,18 +653,10 @@ def window_place(spec: TableSpec, x, sub) -> jax.Array:
 def rows_for_batch(spec: TableSpec, g128, sub, inverse) -> jax.Array:
     """[U, 128] window rows + [U] window index + [n] inverse -> [n, dim] rows
     in batch order. Every heavy op is U-level: window extract at U (cheap
-    [U,128]x[128,dim] matmuls), then ONE [n, dim] row gather. Replaces the
-    n-level formulation (window_extract(g128[inverse], sub[inverse])) whose
-    1-D sub gather alone measured 6.6 ms at n=512K and whose window matmuls
-    ran at n instead of U.
-
-    r5 note: the r2-era lane-pad to [n,128] before the gather is GONE — the
-    measured 6x padded-minor gather penalty no longer reproduces (r5 probe,
-    v5e: take [n,32] from [U,32] 6.47 ms == take [n,128] from [U,128]
-    6.43 ms at n=512K), so the narrow gather saves the [U,128] pad + [n]
-    slice copies (~2 ms/step at the headline shape) at identical per-row
-    cost. Differentiable: the VJP is a narrow [n,dim]->[U,dim] row
-    scatter-add (same measured cost as the 128-lane one) -> window_place."""
+    [U,128]x[128,dim] matmuls), then ONE narrow [n, dim] row gather instead
+    of the n-level window_extract(g128[inverse], sub[inverse]).
+    Differentiable: the VJP is a narrow [n,dim]->[U,dim] row scatter-add
+    -> window_place."""
     rows_u = window_extract(spec, g128, sub)  # [U, dim] f32
     return jnp.take(rows_u, inverse, axis=0)
 
@@ -707,8 +665,7 @@ def grads_to_window(spec: TableSpec, g, sub, inverse, num_unique) -> jax.Array:
     """[n, dim] per-occurrence grads -> [U, 128] window-space per-slot grads:
     the explicit adjoint of rows_for_batch (for hand-written backward paths
     like bench.py). One duplicate-tolerant [n, dim] row scatter-add, then
-    U-level window_place (narrow scatter == 128-lane scatter in the r5
-    probe: 7.19 vs 7.16 ms at n=512K — the lane pad bought nothing)."""
+    U-level window_place."""
     g = g.astype(jnp.float32)
     if spec.dim == LANES:
         return jnp.zeros((num_unique, LANES), jnp.float32).at[inverse].add(
@@ -725,7 +682,7 @@ def lookup_rows_expand(
 ) -> jax.Array:
     """[U] slots + [n] inverse -> [n, dim] rows in batch order: window
     extract at U (matmuls scale with U, not n), then one narrow [n, dim]
-    row gather (same measured cost as a 128-lane gather, r5 probe)."""
+    row gather."""
     if spec.dim >= LANES:
         rows = lookup_rows(spec, shard, slot)
         return rows[inverse]
@@ -760,10 +717,10 @@ def evict_pass(spec: TableSpec, shard: TableShard, step,
 
     With `policy.evict_scan_buckets = K` set, only buckets
     [bucket_off, bucket_off + K) are SCANNED per pass (the caller rotates
-    `bucket_off` across ticks, wrapping at num_buckets) — at 2^27 capacity
-    the full-plane candidate scan alone measured ~1.2 s/pass on a v5e
-    (VERDICT r2 #9); a K-bucket window costs ~K/nb of that while the
-    export/clear machinery is unchanged (global slot indices throughout).
+    `bucket_off` across ticks, wrapping at num_buckets) — the full-plane
+    candidate scan grows with capacity, while a K-bucket window costs ~K/nb
+    of it and the export/clear machinery is unchanged (global slot indices
+    throughout).
     `bucket_off=None` (or K=None) scans everything."""
     pol = spec.policy
     E = pol.max_evict_per_pass
@@ -776,9 +733,8 @@ def evict_pass(spec: TableSpec, shard: TableShard, step,
     # Wrapped window: bucket rows [off, off+K) mod nb. A bucket-row gather
     # (instead of dynamic_slice) lets the final window WRAP instead of clamp,
     # so when K doesn't divide nb consecutive windows still tile the ring and
-    # every bucket is scanned exactly once per lap of nb bucket-scans
-    # (VERDICT r4 weak #5: the clamped tail double-scanned buckets near
-    # nb - K). Off the step critical path, so the gather's extra cost over a
+    # every bucket is scanned exactly once per lap of nb bucket-scans (a
+    # clamped tail would double-scan buckets near nb - K). Off the step critical path, so the gather's extra cost over a
     # contiguous slice is irrelevant.
     wrows = (off + jnp.arange(K, dtype=jnp.int32)) % nb
 

@@ -142,3 +142,38 @@ def test_unique_pairs_owner_major(rng):
     for s in range(S):
         seg = j[ow_v == s]
         assert (np.diff(seg.astype(np.uint64).view(np.int64)) > 0).all() or len(seg) <= 1
+
+
+def test_combine_rows_by_vrow_disjoint_exact(rng):
+    """The float combine is bit-exact for lane-disjoint contributions (the
+    byte-plane integer path), regardless of batch-global magnitudes."""
+    from meepoembedding_tpu.ops.dedup import combine_rows_by_vrow
+
+    n, pack = 64, 4
+    vrow = rng.integers(0, 8, size=n).astype(np.int32)
+    sub = rng.integers(0, pack, size=n)
+    # give each (vrow, sub) pair at most one contributor -> lane-disjoint runs
+    seen = set()
+    enabled = np.zeros(n, bool)
+    for i in range(n):
+        if (int(vrow[i]), int(sub[i])) not in seen:
+            seen.add((int(vrow[i]), int(sub[i])))
+            enabled[i] = True
+    rows = np.zeros((n, 128), np.float32)
+    d = 128 // pack
+    vals = (rng.normal(size=(n, d)) * 1e4).astype(np.float32)  # large magnitudes
+    for i in range(n):
+        rows[i, sub[i] * d : (sub[i] + 1) * d] = vals[i]
+    uv, comb = jax.jit(combine_rows_by_vrow)(
+        jnp.asarray(vrow), jnp.asarray(rows), jnp.asarray(enabled)
+    )
+    uv, comb = np.asarray(uv), np.asarray(comb)
+    expect: dict = {}
+    for i in range(n):
+        if enabled[i]:
+            expect.setdefault(int(vrow[i]), np.zeros(128, np.float32))
+            expect[int(vrow[i])] += rows[i]
+    got = {int(v): comb[j] for j, v in enumerate(uv) if v >= 0}
+    assert set(got) == set(expect)
+    for k in expect:
+        np.testing.assert_array_equal(got[k], expect[k])  # BIT-exact

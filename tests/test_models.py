@@ -128,7 +128,7 @@ def test_deepfm_trains_e2e():
 
 
 def test_bf16_tower_trains_all_models():
-    """model.dtype=bfloat16: params/activations in bf16, f32 MXU accumulate,
+    """model.dtype=bfloat16: params/activations in bf16, f32 accumulate,
     f32 logits — every model family trains with finite loss."""
     from meepoembedding_tpu.config import RunConfig, TableConfig
     from meepoembedding_tpu.data.synthetic import SyntheticConfig, SyntheticStream

@@ -1,13 +1,12 @@
 """Ragged all-to-all exchange (parallel/ragged.py, SURVEY.md C13) on the
 8-virtual-device CPU mesh.
 
-XLA:CPU cannot lower `ragged-all-to-all`, so these tests pin
-ragged.EMULATE_TRANSPORT = True — the emulated transport is element-exact to
-the collective's write semantics (same offsets/sizes/prefill behavior), so
-everything ABOVE the transport (plan negotiation, clamping, drop accounting,
-owner-side dedup/lookup, both reverse legs) is the production code path.
-The real TPU lowering is smoke-tested on hardware (bench_sharded_overhead.py
-with MEEPO_A2A_RAGGED=1)."""
+The transport is the emulation on every backend (ragged.EMULATE_TRANSPORT,
+ROADMAP B9), element-exact to the collective's write semantics (same
+offsets/sizes/prefill behavior), so these tests run the production path:
+plan negotiation, clamping, drop accounting, owner-side dedup/lookup, both
+reverse legs. chip_smoke.py --four-cards checks it against one card on
+GPUs."""
 
 import jax
 import jax.numpy as jnp
@@ -34,11 +33,6 @@ S = 8
 def mesh():
     assert jax.device_count() >= S, "conftest must provide 8 virtual devices"
     return make_mesh(S)
-
-
-@pytest.fixture(autouse=True)
-def _emulate_transport(monkeypatch):
-    monkeypatch.setattr(rg, "EMULATE_TRANSPORT", True)
 
 
 def test_emulated_transport_matches_ragged_semantics(mesh):

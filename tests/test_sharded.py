@@ -390,8 +390,8 @@ def test_eval_step_reports_route_drops(mesh):
 def test_single_device_mesh_grow_and_checkpoint(tmp_path):
     """S=1 mesh regression: XLA reports the single shard as a full-axis
     slice, which addressable_shard_trees used to read as 'replicated' —
-    growth and checkpointing must work on a 1-device mesh (that is the
-    TPU-v5e-single-chip deployment of the distributed trainer)."""
+    growth and checkpointing must work on a 1-device mesh (the one-card
+    deployment of the distributed trainer)."""
     run = RunConfig(batch_size=64, steps=3, pipeline_depth=0)
     table = TableConfig(dim=8, capacity=1 << 10, grow_at_load=0.8)
     model = ModelConfig(

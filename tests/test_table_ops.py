@@ -112,9 +112,10 @@ class TestWindowExactness:
     @pytest.mark.parametrize("dim", [8, 32, 128])
     def test_insert_gather_roundtrip_bit_exact(self, rng, dim):
         """The window pack/unpack matmuls must be BIT-exact for f32 rows
-        (ADVICE r1: default TPU matmul precision rounds operands to bf16;
+        (default matmul precision may round f32 operands, TF32 on GPUs;
         precision=HIGHEST keeps one-hot selections exact). Exercised on
-        whatever backend runs the suite; on TPU this catches the bf16 path."""
+        whatever backend runs the suite; on a GPU this catches the TF32
+        path."""
         spec = make_spec(dim=dim, nb=8)
         shard = alloc_shard(spec)
         ids = np.unique(_ids(rng, 64))
